@@ -1,0 +1,3 @@
+from .loop import TrainConfig, make_train_step, train
+
+__all__ = ["TrainConfig", "make_train_step", "train"]
